@@ -1,6 +1,6 @@
 """Getting started: 1-D correlated field + Gaussian likelihood, geoVI.
 
-TPU-native analogue of the reference demo ``demos/re/0_intro.py``:
+Analogue of the reference demo ``demos/re/0_intro.py``:
 build a non-parametric correlated-field prior, generate synthetic data,
 and run `optimize_kl` (MGVI/geoVI).
 """
@@ -11,7 +11,7 @@ import jax
 
 if os.environ.get("NIFTY_TPU_DEMO_CPU", "0") == "1":
     jax.config.update("jax_platforms", "cpu")
-# f64 on CPU for exact parity checks; native f32 on TPU
+# f64 on CPU for exact parity checks; f32 on accelerators
 if jax.default_backend() == "cpu":
     jax.config.update("jax_enable_x64", True)
 

@@ -1,6 +1,6 @@
 """Config-file-driven inference: the OptimizeKLConfig driver.
 
-TPU-native analogue of the reference demo
+Analogue of the reference demo
 ``demos/cl/getting_started_7_config_file.py``
 (``nifty/cl/minimization/config/optimize_kl_config.py``): the whole VI
 schedule — iteration counts, per-iteration sample numbers with ``N*K``

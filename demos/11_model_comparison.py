@@ -1,6 +1,6 @@
 """Bayesian model comparison via the evidence lower bound (ELBO).
 
-TPU-native analogue of the reference demo
+Analogue of the reference demo
 ``demos/cl/getting_started_model_comparison.py``
 (``nifty/re/evidence_lower_bound.py:341``): fit two competing priors —
 the correct smooth-spectrum model and an over-stiff one — to the same

@@ -1,6 +1,6 @@
 """Parametric variational inference: mean-field and full-covariance ADVI.
 
-TPU-native analogue of the reference demo
+Analogue of the reference demo
 ``demos/cl/getting_started_parametric_vi.py``
 (``nifty/cl/library/variational_models.py``): a low-dimensional nonlinear
 posterior is approximated by a diagonal-covariance and a full-covariance

@@ -1,6 +1,6 @@
 """Heteroscedastic regression with a learnable full noise covariance.
 
-TPU-native analogue of the reference demo
+Analogue of the reference demo
 ``demos/re/a_NDVariableCovarianceGaussian.py``
 (``nifty/re/likelihood_impl.py:376``): jointly infer a smooth signal and
 a per-datum 2x2 noise covariance whose correlation and scale vary along

@@ -1,6 +1,6 @@
 """Tomography: line-of-sight integrals through a 2-D correlated field.
 
-TPU-native analogue of the reference demo ``demos/re/1_tomography.py``:
+Analogue of the reference demo ``demos/re/1_tomography.py``:
 reconstruct a log-density field from noisy LOS integrals with MGVI.
 """
 

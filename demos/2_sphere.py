@@ -1,6 +1,6 @@
 """All-sky inference: correlated field on the HEALPix sphere.
 
-Exercises the TPU-native spherical-harmonic synthesis (no ducc0): fit a
+Exercises the plain-XLA spherical-harmonic synthesis (no ducc0): fit a
 spherical correlated field to noisy pixel data with MGVI and render a
 Mollweide view.
 """

@@ -1,6 +1,6 @@
 """NUTS sampling of a correlated-field posterior (native adaptation).
 
-TPU-native analogue of the reference's ``demos/re/a_nuts.py``: sample
+Analogue of the reference's ``demos/re/a_nuts.py``: sample
 the standardized posterior of a 1-D correlated-field model with the
 built-in window-adaptation NUTS (no blackjax), chains vmapped.
 """

@@ -1,7 +1,7 @@
 """Multi-grid GP: iterative charted refinement with a learned Matérn
 kernel on a 2-D open grid.
 
-TPU-native analogue of the reference's ``demos/re/a_icr.py``: the GP
+Analogue of the reference's ``demos/re/a_icr.py``: the GP
 never materializes a covariance over the fine grid — each refinement is
 a batched stencil matmul — so the same model scales to 10⁸⁺ pixels.
 """

@@ -1,6 +1,6 @@
 """Wiener filter: the exact Gaussian posterior for a linear model.
 
-TPU-native analogue of the reference demo ``demos/re/a_wiener_filter.py``:
+Analogue of the reference demo ``demos/re/a_wiener_filter.py``:
 known covariance, masked data, CG-solved posterior mean and samples.
 """
 

@@ -1,6 +1,6 @@
 """Multifrequency imaging: batched correlated fields + RGB rendering.
 
-TPU-native analogue of the reference demo ``demos/cl/getting_started_5_mf.py``
+Analogue of the reference demo ``demos/cl/getting_started_5_mf.py``
 (dofdex-style multifrequency correlated fields,
 ``nifty/cl/library/correlated_fields.py:659``): here the frequency axis is a
 `VModel` vmap over per-channel excitations with a *shared* spectrum — the

@@ -1,6 +1,6 @@
 """Non-parametric density estimation from event counts.
 
-TPU-native analogue of the reference demo
+Analogue of the reference demo
 ``demos/cl/getting_started_density.py`` (``nifty/cl/sugar.py:230``
 ``density_estimator``): an exponentiated Matérn correlated field on a
 padded grid is fit to binned samples with a Poisson likelihood.

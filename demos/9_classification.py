@@ -1,6 +1,6 @@
 """Binary classification of a spatial field: Bernoulli likelihood.
 
-TPU-native analogue of the reference demo
+Analogue of the reference demo
 ``demos/cl/getting_started_3.py``'s Bernoulli variant
 (``nifty/cl/operators/energy_operators.py:749``): a correlated field is
 squashed through a sigmoid into per-pixel event probabilities; the data

@@ -1,10 +1,10 @@
-"""nifty_tpu — a TPU-native Bayesian field-inference framework.
+"""nifty_tpu — a Bayesian field-inference framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of NIFTy
 (NIFTy-PPL): hierarchical Gaussian-process generative models, likelihoods
 with Fisher metrics, MGVI/geoVI variational inference, HMC/NUTS, and the
-surrounding diagnostics — built for TPU pod slices (device meshes,
-collectives over ICI, fully-jittable solvers).
+surrounding diagnostics — built for accelerators (device meshes,
+collectives, fully-jittable solvers).
 
 The public API mirrors ``nifty.re`` so reference users can switch with an
 import swap.

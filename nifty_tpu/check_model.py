@@ -3,8 +3,8 @@
 For each of forward / JVP / VJP this benchmarks the model with and
 without jit, reads XLA's ``memory_analysis()``, and parses the compiled
 HLO for large inlined constants — the classic symptom of a model closing
-over concrete arrays instead of tracing them (costly recompiles and HBM
-waste on TPU).  It also lists the model's pytree leaves (arrays that
+over concrete arrays instead of tracing them (costly recompiles and device-memory
+waste).  It also lists the model's pytree leaves (arrays that
 correctly remain runtime inputs).
 
 Behavioral parity with ``nifty/re/check_model.py``; independent

@@ -8,43 +8,16 @@ Keys
     ``"non_canonical_hartley"`` (Re F + Im F, ducc's convention — what the
     reference defaults to).  Both are valid self-inverse transforms; they
     differ by a spatial reflection of the white noise.
-``fft_impl``:
-    ``"auto"`` (default): on TPU, real full 1-D/2-D Hartley transforms
-    of composite even length run the split-real half-spectrum MXU
-    einsum pipeline; complex transforms use the MXU matmul FFT for
-    axis lengths ≤ 2048 and XLA's VPU FFT beyond.  ``"xla"`` /
-    ``"matmul"`` / ``"splitreal"`` / ``"pallas"`` force a choice
-    (``"splitreal"`` and ``"pallas"`` also enable those paths off-TPU,
-    for tests — ``"pallas"`` runs the kernels through the Pallas
-    interpreter).  The fused Pallas four-step Hartley
-    (``ops/pallas_fft.py`` — input read once, output written once,
-    bf16x3 MXU dots) is opt-in: measured end-to-end it only matches
-    the einsum pipeline at ≥4096² while costing a much longer Mosaic
-    compile (see ``ops/fft.py:_use_pallas``).
 """
 
 from __future__ import annotations
 
 _config = {
     "hartley_convention": "canonical_hartley",
-    "fft_impl": "auto",
-    # exact-spectrum expansion through the Clos-routed Pallas shuffle
-    # network (ops/route.py + ops/pallas_expand.py) instead of XLA's
-    # scalar gather path.  "auto": enabled on TPU for layouts up to
-    # `expand_network_max` packed indices (the offline router runs the
-    # native Euler splitter: ~0.5 s at 1280², ~17 s at 4096²-exact);
-    # "off" disables; "interpret" forces it on any backend through the
-    # Pallas interpreter (tests).  The cap bounds per-kernel VMEM (the
-    # network tensors are O(P) and VMEM-resident; ~5M indices ≈ the
-    # 128 MB v5e VMEM).
-    "expand_network": "auto",
-    "expand_network_max": 3_000_000,
 }
 
 _VALID = {
     "hartley_convention": ("canonical_hartley", "non_canonical_hartley"),
-    "fft_impl": ("auto", "xla", "matmul", "splitreal", "pallas"),
-    "expand_network": ("auto", "off", "interpret"),
 }
 
 __all__ = ["update", "_config"]

@@ -5,10 +5,10 @@ Two variants with identical convergence semantics:
 * :func:`cg` — host-side loop; cheap per-iteration Python logic, lets the
   caller stop early.  Each matrix-vector product is still a jitted device
   computation.
-* :func:`static_cg` — the TPU-native default: the whole solve is one
+* :func:`static_cg` — the device-resident variant: the whole solve is one
   ``lax.while_loop`` inside ``jit``; no host↔device synchronization per
   iteration.  When the operand tree is sharded over a mesh, the ``vdot``
-  reductions lower to ``psum`` collectives over ICI, so the same code is
+  reductions lower to ``psum`` collectives, so the same code is
   the distributed CG.
 
 Convergence criteria (absdelta on the CG energy, residual norm, miniter /

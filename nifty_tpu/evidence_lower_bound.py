@@ -12,7 +12,7 @@ Where the reference shells out to scipy/ARPACK on the host
 implementation runs a **batched, deflated Lanczos** entirely in XLA: the
 metric-vector product is the jitted forward/adjoint of the model, the
 full reorthogonalization and the deflation against previously found
-eigenvectors are dense matmuls (MXU), and the small tridiagonal
+eigenvectors are dense matmuls, and the small tridiagonal
 eigenproblem is a batched ``eigh``.  The deflation basis is kept at a
 static padded width so every batch reuses one compiled program.
 

@@ -130,7 +130,7 @@ def check_likelihood_metrics(lh: Likelihood, pos, key, *, rtol=1e-6, atol=1e-9):
 def no_host_transfers(level: str = "disallow"):
     """Sanitizer context: fail (or log) on implicit host↔device transfers.
 
-    The TPU analogue of the reference's device-copy guards
+    The analogue of the reference's device-copy guards
     (``nifty/cl/any_array.py:48`` `assert_no_device_copies` and the
     ``fail_on_device_copy`` config flag): inside the context, any
     implicit transfer — a numpy coercion of a device array, an implicit

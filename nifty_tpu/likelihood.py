@@ -10,8 +10,8 @@ A :class:`Likelihood` is an energy (negative log-likelihood) together with
 * ``metric`` = LSM ∘ RSM — the Fisher information metric.
 
 All derived quantities are obtained with JAX's jvp / vjp /
-``linear_transpose`` — there are no hand-written Jacobians anywhere.  On
-TPU the metric-vector product (one linearized forward + one transposed
+``linear_transpose`` — there are no hand-written Jacobians anywhere.  The
+metric-vector product (one linearized forward + one transposed
 application of the full model) is the hot loop of variational inference;
 everything here stays inside ``jit`` without host round-trips.
 

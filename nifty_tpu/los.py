@@ -179,7 +179,7 @@ def _ray_cells_and_weights(
 class ExactGridLOS(LazyModel):
     """Exact line-of-sight response over a regular Cartesian grid.
 
-    TPU-native counterpart of the reference's sparse-matrix
+    Counterpart of the reference's sparse-matrix
     ``LOSResponse`` (``nifty/cl/library/los_response.py:103``): the exact
     ray-cell intersection segments are computed offline (numpy) and stored
     as per-ray padded ``(cell index, weight)`` tables; the device apply is

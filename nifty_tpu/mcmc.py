@@ -7,7 +7,7 @@ and a Welford estimator of the per-parameter posterior variance for the
 diagonal (inverse) mass matrix, in a fast–slow–fast window schedule.
 
 Warmup and sampling are each one ``lax.scan`` program, vmapped over
-chains — on a TPU mesh, chains shard trivially over devices (shard the
+chains — on a device mesh, chains shard trivially over devices (shard the
 leading chain axis of the keys/positions).
 """
 

@@ -6,8 +6,8 @@ constants hashed into the jit cache) unless explicitly marked dynamic via
 ``dataclasses.field(metadata=dict(static=False))``.  This lets whole
 models — including likelihoods holding data arrays — be passed as
 arguments into ``jit``-ed functions instead of being baked into the
-compiled executable as constants, which matters on TPU where inlined
-mega-constants blow up compile time and HBM.
+compiled executable as constants, where inlined mega-constants blow up
+compile time and device memory.
 
 Behavioral parity with the reference's model core
 (``nifty/re/model.py:32-477``); independent implementation.

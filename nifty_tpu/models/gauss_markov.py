@@ -94,10 +94,8 @@ def integrated_wiener_process(xi, x0, sigma, dt, asperity=None):
     other the underlying Wiener process; `asperity` adds a rough WP
     component to the integrated coordinate.
 
-    TPU note: the two prefix sums run on *flat 1-D* arrays and the
-    (N+1, 2) result is assembled at the end — a cumsum along axis 0 of an
-    (N, 2) array hits a catastrophic sublane-scan path on TPU (~2000×
-    slower at N ≈ 1e5).
+    The two prefix sums run on *flat 1-D* arrays and the (N+1, 2) result
+    is assembled at the end.
     """
     asperity = 0.0 if asperity is None else asperity
     dt = jnp.ones(xi.shape[0], dtype=jnp.result_type(xi)) * dt if _isscalar(dt) else dt

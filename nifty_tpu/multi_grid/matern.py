@@ -19,8 +19,7 @@ parameter path is pure elementwise math plus one matmul-sized
 contraction).
 
 ``J₀`` is implemented with the classic rational/asymptotic split (valid
-to ~1e-8 in double precision) since neither jax nor TPUs ship Bessel
-functions.
+to ~1e-8 in double precision) since jax ships no Bessel functions.
 """
 
 from __future__ import annotations

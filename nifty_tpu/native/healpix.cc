@@ -1,6 +1,6 @@
 // HEALPix host-side geometry kernels (C++17, OpenMP-parallel).
 //
-// The TPU-native framework keeps all *device* math in XLA; what remains
+// The framework keeps all *device* math in XLA; what remains
 // native is construction-time geometry: pixel <-> angle maps, RING/NEST
 // reordering, and neighbor tables for spherical refinement stencils.
 // This mirrors the role ducc0's C++ healpix support plays for the

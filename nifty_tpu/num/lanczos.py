@@ -1,9 +1,8 @@
 """Lanczos tridiagonalization and stochastic log-determinants.
 
-TPU-first formulation: the full reorthogonalization of each Krylov vector
+Formulation: the full reorthogonalization of each Krylov vector
 against the accumulated basis is expressed as two dense matmuls
-(``V @ w`` then ``V.T @ coeff``) instead of a loop of rank-1 updates, so
-it runs on the MXU; the Krylov recurrence itself is a ``lax.fori_loop``
+(``V @ w`` then ``V.T @ coeff``) instead of a loop of rank-1 updates; the Krylov recurrence itself is a ``lax.fori_loop``
 with static ``order`` so the whole decomposition is one XLA program.
 
 Replaces scipy's ARPACK (used by the reference for ELBO spectra) and
@@ -84,7 +83,7 @@ def lanczos_tridiag(
         alpha = jnp.dot(w, q)
         tridiag = tridiag.at[i, i].set(alpha)
         w = w - alpha * q
-        # full reorthogonalization as two MXU matmuls against the whole
+        # full reorthogonalization as two matmuls against the whole
         # (zero-padded, hence harmless) basis
         coeff = vecs @ w  # (order,)
         w = w - vecs.T @ coeff

@@ -224,7 +224,7 @@ def outer_product(field):
 
 
 def matrix_product(matrix, *, axis: int = -1):
-    """Apply a dense matrix along one axis (MXU-native).  Ref: ``nifty/cl/
+    """Apply a dense matrix along one axis (a matmul).  Ref: ``nifty/cl/
     operators/matrix_product_operator.py``."""
     matrix = jnp.asarray(matrix)
 
@@ -269,8 +269,7 @@ def regrid(new_shape: Sequence[int]):
     in the input.  Ref: ``nifty/cl/operators/regridding_operator.py``.
 
     Implemented as one sparse-weight matmul per axis (two taps per output
-    pixel), which XLA maps onto dense matmul units — preferable on TPU to
-    a gather-based formulation.
+    pixel) rather than a gather.
     """
     new_shape = tuple(int(s) for s in new_shape)
 

@@ -112,7 +112,7 @@ def pix2ang_ring(nside: int, pix):
 # jhealpix.py:299-534``, written for per-element vmap), everything below is
 # branch-free and batch-vectorized: all case formulas are evaluated and
 # `where`-selected, so a single call handles arbitrarily-shaped pixel
-# arrays with uniform (TPU-friendly) control flow.
+# arrays with uniform control flow.
 
 _JRLL = np.array([2, 2, 2, 2, 3, 3, 3, 3, 4, 4, 4, 4])
 _JPLL = np.array([1, 3, 5, 7, 0, 2, 4, 6, 1, 3, 5, 7])

@@ -1,23 +1,23 @@
-"""TPU-fast expansion of unique-|k| mode tables onto harmonic grids.
+"""Expansion of unique-|k| mode tables onto harmonic grids.
 
 The exact (reference-parity) correlated field stores one amplitude value
-per *unique* |k| and expands it to the harmonic grid — a per-pixel gather,
-the dominant cost of a Fisher-metric application on TPU (XLA:TPU gathers
-execute ~one index per ~6.7 ns through the scalar path, independent of
-table size; reference kernel: ``nifty/re/correlated_field.py:889-907``).
+per *unique* |k| and expands it to the harmonic grid — a per-pixel gather
+(reference kernel: ``nifty/re/correlated_field.py:889-907``), whose
+transpose in the Fisher metric is a scatter-add.
 
-Two measured (TPU v5e) facts shape this module:
+Two layout choices keep the index count and the gathered slices small:
 
-1. Gathers whose slices are >= 2 elements wide take a ~3x faster path
-   (~2.2 ns/index).  Every expansion therefore gathers from an ``(U, 2)``
-   table — a zero column is padded when only one value is needed, and
-   vmap batches ride along as extra columns at *no* per-index cost.
-2. Cost is per *index*, so shrinking the index count wins directly.  On a
-   square isotropic grid, |k| on the non-redundant ``(H, H)`` octant is
-   symmetric under transposition; the upper triangle packs *exactly*
+1. Every expansion gathers from an ``(U, 2)`` table — a zero column is
+   padded when only one value is needed — so that vmap batches ride along
+   as extra columns of the same gather.
+2. On a square isotropic grid, |k| on the non-redundant ``(H, H)`` octant
+   is symmetric under transposition; the upper triangle packs *exactly*
    (``H`` odd) into a rectangular-full-packed ``((H+1)/2, H)`` layout
    whose unpack/fold are pure slice/transpose/mask ops.  Gather and
-   scatter index counts halve: ~2x on top of the wide-slice win.
+   scatter index counts halve.
+
+Both were tuned on the accelerator this code was first written for;
+whether they pay on the GPU is an open measurement (ROADMAP S7).
 
 The expansion is a first-class primitive (impl / linear JVP / custom
 transpose / batching) so it works under ``jax.linearize`` +
@@ -38,65 +38,12 @@ __all__ = [
     "build_expand_layout",
     "mode_expand",
     "ExpandLayout",
-    "enable_network_expand",
 ]
 
 ExpandLayout = namedtuple(
     "ExpandLayout",
-    ("kind", "core_shape", "packed_shape", "n_unique", "idx_hash"),
+    ("kind", "core_shape", "packed_shape", "n_unique"),
 )
-
-# Clos-network plans (ops/route.py) keyed by layout: when registered, the
-# packed gather/scatter of that layout runs through the Pallas shuffle
-# cascade (ops/pallas_expand.py) instead of XLA's scalar gather path.
-_NETWORK_PLANS: dict = {}
-
-
-def _idx_hash(core_idx: np.ndarray) -> str:
-    """Content hash of the index table — part of the layout (and hence of
-    the plan key), so two same-shape layouts with different index contents
-    can never alias each other's routing plans."""
-    import hashlib
-
-    h = hashlib.sha1()
-    h.update(str(core_idx.shape).encode())
-    h.update(np.ascontiguousarray(core_idx, dtype=np.int64).tobytes())
-    return h.hexdigest()[:16]
-
-
-def _plan_key(layout):
-    return (layout.kind, layout.core_shape, layout.n_unique, layout.idx_hash)
-
-
-def enable_network_expand(layout, packed_idx, *, interpret=False, plan=None):
-    """Build (or register) a routing plan so this layout's expansion runs
-    on the Pallas network.  Idempotent (refreshes the interpret flag);
-    returns the plan."""
-    key = _plan_key(layout)
-    entry = _NETWORK_PLANS.get(key)
-    if entry is None:
-        if plan is None:
-            from .route import build_expand_plan
-
-            plan = build_expand_plan(
-                np.asarray(packed_idx).ravel(), layout.n_unique
-            )
-        entry = (plan, bool(interpret))
-    else:
-        entry = (entry[0], bool(interpret))
-    _NETWORK_PLANS[key] = entry
-    return entry[0]
-
-
-def _active_plan(layout):
-    """The registered network plan for ``layout`` — or None when there is
-    none or the network is configured off."""
-    from ..config import _config
-
-    if _config.get("expand_network", "auto") == "off":
-        return None
-    return _NETWORK_PLANS.get(_plan_key(layout))
-
 
 def _rfp_index_table(core: np.ndarray) -> np.ndarray:
     """Pack the upper triangle of a symmetric (H, H) index table (H odd)
@@ -138,7 +85,6 @@ def build_expand_layout(core_idx: np.ndarray, n_unique: int):
                 core_shape=core_shape,
                 packed_shape=tuple(int(n) for n in R.shape),
                 n_unique=int(n_unique),
-                idx_hash=_idx_hash(R),
             ),
         )
     return (
@@ -148,7 +94,6 @@ def build_expand_layout(core_idx: np.ndarray, n_unique: int):
             core_shape=core_shape,
             packed_shape=core_shape,
             n_unique=int(n_unique),
-            idx_hash=_idx_hash(core_idx),
         ),
     )
 
@@ -228,36 +173,25 @@ def _expand_abstract(tab, packed_idx, *, layout):
     return jax.core.ShapedArray(shape, tab.dtype)
 
 
-def _expand_flat_impl(tab, packed_idx, *, layout, network=True):
+def _expand_flat_impl(tab, packed_idx, *, layout):
     """Flat expansion core: (U,) or (U, B) table → (P,) / (P, B) packed
-    values.  Routes single f32 expansions through the Pallas network."""
+    values."""
     single = tab.ndim == 1
-    entry = _active_plan(layout) if network else None
-    if entry is not None and single and tab.dtype == jnp.float32:
-        from .pallas_expand import expand_forward
-
-        plan, interp = entry
-        return expand_forward(plan, tab, interpret=interp)
     idx_flat = packed_idx.ravel()
     t2 = tab[:, None] if single else tab
     if t2.shape[-1] < 2:
-        # the >=2-wide slice gather path is ~3x faster per index even when
-        # one column is padding
+        # gather 2-wide slices even when one column is padding (module
+        # docstring, point 1)
         t2 = jnp.concatenate([t2, jnp.zeros_like(t2)], axis=-1)
     g = t2[idx_flat][..., : 1 if single else tab.shape[-1]]
     return g[..., 0] if single else g
 
 
 def _make_expand_flat_primitive():
-    """Flat expansion as a primitive (see `_make_collapse_primitive` for
-    why: raw Pallas calls in a linear jaxpr get lifted by the default
-    pallas batching rule under a later vmap and OOM scoped VMEM on big
-    layouts; these primitives' batch rules fall back to the XLA
-    gather/scatter paths instead)."""
-    try:
-        from jax.extend.core import Primitive
-    except ImportError:  # pragma: no cover - older jax
-        from jax.core import Primitive
+    """Flat expansion as a primitive, the transpose partner of the flat
+    collapse: the pair keeps the packed gather and scatter-add as single
+    operations through linearize, transpose and vmap."""
+    from jax.extend.core import Primitive
     from jax.interpreters import ad, batching, mlir
 
     prim = Primitive("nifty_mode_expand_flat")
@@ -292,17 +226,13 @@ def _make_expand_flat_primitive():
         dt, di = dims
         if di is not _b.not_mapped:
             out = jax.vmap(
-                lambda t_, i_: _expand_flat_impl(
-                    t_, i_, layout=layout, network=False
-                ),
+                lambda t_, i_: _expand_flat_impl(t_, i_, layout=layout),
                 in_axes=(None if dt is _b.not_mapped else dt, di),
             )(t, idx)
             return out, 0
         if t.ndim - 1 != 1:
             out = jax.vmap(
-                lambda t_: _expand_flat_impl(
-                    t_, idx, layout=layout, network=False
-                ),
+                lambda t_: _expand_flat_impl(t_, idx, layout=layout),
                 in_axes=dt,
             )(t)
             return out, 0
@@ -324,40 +254,18 @@ def _make_expand_flat_primitive():
 _mode_expand_flat_p = _make_expand_flat_primitive()
 
 
-def _collapse_impl(c_flat, packed_idx, *, layout, network=True):
+def _collapse_impl(c_flat, packed_idx, *, layout):
     """Flat collapse (the expansion's adjoint core): (P,) or (P, B)
-    packed cotangents → (n_unique,) / (n_unique, B) scatter-add.  Routes
-    single f32 collapses through the Pallas network transpose."""
-    single = c_flat.ndim == 1
-    entry = _active_plan(layout) if network else None
-    if entry is not None and single and c_flat.dtype == jnp.float32:
-        from .pallas_expand import expand_transpose
-
-        plan, interp = entry
-        return expand_transpose(plan, c_flat, interpret=interp)
-    idx_flat = packed_idx.ravel()
-    if single:
-        # flat 1-wide scatter-add — measured ~2x faster than the
-        # (n_unique, 1)-operand form on TPU
-        out = jnp.zeros((layout.n_unique,), c_flat.dtype)
-        return out.at[idx_flat].add(c_flat)
-    B = c_flat.shape[-1]
-    out = jnp.zeros((layout.n_unique, B), c_flat.dtype)
-    return out.at[idx_flat].add(c_flat)
+    packed cotangents → (n_unique,) / (n_unique, B) scatter-add."""
+    out = jnp.zeros((layout.n_unique,) + c_flat.shape[1:], c_flat.dtype)
+    return out.at[packed_idx.ravel()].add(c_flat)
 
 
 def _make_collapse_primitive():
-    """The flat collapse as its own primitive.  Without it the expand
-    transpose rule would emit raw Pallas calls into the linear jaxpr, and
-    a later `vmap` would lift them with the *default* pallas batching
-    rule (a prepended grid axis) — the whole (H, 128) network stack times
-    the batch lands in scoped VMEM at once, which OOMs for ≥4096²-exact
-    layouts (H = 22016).  The batch rule here falls back to the XLA
-    scatter-add path instead."""
-    try:
-        from jax.extend.core import Primitive
-    except ImportError:  # pragma: no cover - older jax
-        from jax.core import Primitive
+    """The flat collapse as its own primitive, so that a batched
+    transpose rides the batch as trailing scatter columns (one
+    scatter-add) instead of a vmapped scatter per batch element."""
+    from jax.extend.core import Primitive
     from jax.interpreters import ad, batching, mlir
 
     prim = Primitive("nifty_mode_collapse")
@@ -396,21 +304,17 @@ def _make_collapse_primitive():
         dc, di = dims
         if di is not _b.not_mapped:
             out = jax.vmap(
-                lambda c_, i_: _collapse_impl(
-                    c_, i_, layout=layout, network=False
-                ),
+                lambda c_, i_: _collapse_impl(c_, i_, layout=layout),
                 in_axes=(None if dc is _b.not_mapped else dc, di),
             )(c, idx)
             return out, 0
         if c.ndim - 1 != 1:
             out = jax.vmap(
-                lambda c_: _collapse_impl(
-                    c_, idx, layout=layout, network=False
-                ),
+                lambda c_: _collapse_impl(c_, idx, layout=layout),
                 in_axes=dc,
             )(c)
             return out, 0
-        # batch as trailing scatter columns (XLA path, never the network)
+        # batch as trailing scatter columns
         c2 = jnp.moveaxis(c, dc, -1)
         out = prim.bind(c2, idx, layout=layout)
         return out, out.ndim - 1
@@ -474,17 +378,14 @@ def _expand_batch(args, dims, *, layout):
             partial(_expand_impl, layout=layout), in_axes=(dt, None)
         )(tab, packed_idx)
         return out, 0
-    # ride the batch as extra gather-slice columns — measured free on TPU
+    # ride the batch as extra gather-slice columns
     t = jnp.moveaxis(tab, dt, -1)  # (U, B)
     out = mode_expand(t, packed_idx, layout)  # core + (B,)
     return out, out.ndim - 1
 
 
 def _make_primitive():
-    try:
-        from jax.extend.core import Primitive
-    except ImportError:  # pragma: no cover - older jax
-        from jax.core import Primitive
+    from jax.extend.core import Primitive
     from jax.interpreters import ad, batching, mlir
 
     prim = Primitive("nifty_mode_expand")

@@ -1,4 +1,4 @@
-"""TPU-native spherical-harmonic synthesis on the HEALPix sphere.
+"""Spherical-harmonic synthesis on the HEALPix sphere, in plain XLA.
 
 Replaces the reference's ducc0 C++ SHT (bound through jaxbind,
 ``nifty/re/correlated_field.py:33-52``) with a pure-XLA formulation:
@@ -11,7 +11,7 @@ Replaces the reference's ducc0 C++ SHT (bound through jaxbind,
 2. **Fourier stage** — iso-latitude rings are evaluated by FFT: the
    equatorial band (all rings have 4·nside pixels) as one batched
    ``ifft``; the polar-cap rings (4k pixels) via per-length alias
-   folding (an MXU matmul against a precomputed 0/1 fold matrix)
+   folding (a matmul against a precomputed 0/1 fold matrix)
    followed by tiny batched FFTs.
 
 Everything is linear in the coefficients and built from transposable
@@ -132,6 +132,19 @@ def _recurrence_tables(lmax: int, mmax: int):
 _SCAN_UNROLL = 8  # ℓ-steps per scan iteration (amortizes per-step launch)
 
 
+def _scale_bits(dtype) -> int:
+    """Scaled recurrence: λ = p · 2^(S · q) with an integer level q ≤ 0 per
+    (ring, m) and S half the dtype's largest binary exponent (64 for
+    float32, 512 for float64).  The seeds λ_mm ∝ sin^m θ fall far below the float range
+    near the poles (sin^512 θ ≈ 1e-1280 on the first ring at nside 256)
+    while λ_lm grows back to O(1) at larger ℓ; without the level the seeds
+    flush to zero or lose their mantissa and float32 synthesis is wrong
+    beyond nside ≈ 64.  Values at q < 0 are below 2^-(S/2) (2^-32 for
+    float32, 2^-256 for float64) and are contracted as zero (the libsharp
+    approach)."""
+    return int(jnp.finfo(dtype).maxexp) // 2
+
+
 def _padded_L(lmax: int) -> int:
     """Number of ℓ rows after `_legendre_scan`'s unroll padding."""
     U = _SCAN_UNROLL
@@ -143,12 +156,13 @@ def _legendre_scan(cos_theta, sin_theta, lmax: int, mmax: int, dtype, body,
     """Run ``body(l, lam_l, aux) -> (aux, ys)`` over ℓ = 0..lmax_pad
     inside one ``lax.scan``, where ``lam_l`` is the (n_rings, mmax+1) row
     of normalized associated Legendre functions generated by the stable
-    three-term recurrence.  Shared by the forward contraction and its
-    transpose — nothing of size O(lmax·mmax·n_rings) is materialized.
+    three-term recurrence in scaled form (see ``_scale_bits``).  Shared by
+    the forward contraction and its transpose — nothing of size
+    O(lmax·mmax·n_rings) is materialized.
 
-    ``_SCAN_UNROLL`` ℓ-steps run per scan iteration (the per-iteration
-    launch overhead, ~15 µs on a v5e, otherwise dominates the µs-scale
-    body); the recurrence is padded past lmax (its coefficient formulas
+    ``_SCAN_UNROLL`` ℓ-steps run per scan iteration (the fixed cost of
+    each loop iteration otherwise dominates the µs-scale body); the
+    recurrence is padded past lmax (its coefficient formulas
     stay valid), so ``body`` must tolerate l in [0, lmax_pad] and callers
     must ignore stacked outputs beyond lmax.  Stacked ys come back with
     leading shape (lmax_pad+1, ...).
@@ -156,6 +170,8 @@ def _legendre_scan(cos_theta, sin_theta, lmax: int, mmax: int, dtype, body,
     The grid may carry leading batch axes (``cos_theta``/``sin_theta`` of
     shape (..., n_rings)): ``lax.while_loop`` batching broadcasts loop
     constants, so the primitive's batch rule must accept batched grids."""
+    import jax
+
     grid_batch = cos_theta.shape[:-1]
     n_rings = cos_theta.shape[-1]
     U = _SCAN_UNROLL
@@ -168,27 +184,52 @@ def _legendre_scan(cos_theta, sin_theta, lmax: int, mmax: int, dtype, body,
     col = jnp.arange(mmax + 1)
     ct = cos_theta[..., :, None].astype(dtype)
     st = sin_theta.astype(dtype)
+    # Near the poles the recurrence's solution depends on 1 - |cos θ|,
+    # which a float cos θ mostly rounds away (a relative 1% error on the
+    # first ring at nside 256 in float32).  There cos θ = ±(1 - u) with
+    # u = sin²θ / (1 + |cos θ|) exact to rounding, and the step becomes
+    # a·(±p) - b·p_prev ∓ a·u·p; elsewhere c2 = 0 leaves it as it was.
+    polar = jnp.abs(ct) > 0.5
+    one_minus = st[..., :, None] ** 2 / (1.0 + jnp.abs(ct))
+    c1 = jnp.where(polar, jnp.sign(ct), ct)
+    c2 = jnp.where(polar, jnp.sign(ct) * one_minus, 0.0)
+    scale_bits = _scale_bits(dtype)
+    hi = 2.0 ** (scale_bits // 2)
+    down = jnp.asarray(2.0**-scale_bits, dtype)
+    up = jnp.asarray(2.0**scale_bits, dtype)
 
     lam00 = 1.0 / np.sqrt(4.0 * np.pi)
     pshape = grid_batch + (n_rings, mmax + 1)
     p_prev = jnp.zeros(pshape, dtype=dtype)
     p_curr = jnp.zeros(pshape, dtype=dtype).at[..., :, 0].set(lam00)
+    level = jnp.zeros(pshape, dtype=dtype)
     diag = jnp.full(grid_batch + (n_rings,), lam00, dtype=dtype)
+    diag_level = jnp.zeros(grid_batch + (n_rings,), dtype=dtype)
 
     def step(carry, xs):
-        p_prev, p_curr, diag, aux = carry
+        p_prev, p_curr, level, diag, diag_level, aux = carry
         ls, a_ns, b_ns, d_ns = xs  # each (U, ...)
         ys_list = []
         for u in range(U):
             l = ls[u]
-            aux, ys_u = body(l, p_curr, aux)
+            lam = jnp.where(level == 0, p_curr, 0.0)
+            aux, ys_u = body(l, lam, aux)
             ys_list.append(ys_u)
-            p_new = a_ns[u] * ct * p_curr - b_ns[u] * p_prev
+            a_p = a_ns[u] * p_curr
+            p_new = (c1 * a_p - b_ns[u] * p_prev) - c2 * a_p
+            # columns still below the float range move up one level once
+            # their mantissa is large
+            grow = (level < 0) & (jnp.abs(p_new) > hi)
+            p_new = jnp.where(grow, p_new * down, p_new)
+            p_curr = jnp.where(grow, p_curr * down, p_curr)
+            level = level + grow.astype(dtype)
             new_diag = d_ns[u] * st * diag
-            sel = col == (l + 1)
-            p_new = jnp.where(
-                sel & ((l + 1) <= mmax), new_diag[..., :, None], p_new
-            )
+            shrink = jnp.abs(new_diag) < 1.0 / hi
+            new_diag = jnp.where(shrink, new_diag * up, new_diag)
+            diag_level = diag_level - shrink.astype(dtype)
+            sel = (col == (l + 1)) & ((l + 1) <= mmax)
+            p_new = jnp.where(sel, new_diag[..., :, None], p_new)
+            level = jnp.where(sel, diag_level[..., :, None], level)
             p_prev, p_curr, diag = p_curr, p_new, new_diag
         if ys_list[0] is None:
             ys = None
@@ -196,9 +237,7 @@ def _legendre_scan(cos_theta, sin_theta, lmax: int, mmax: int, dtype, body,
             ys = jax.tree_util.tree_map(
                 lambda *zs: jnp.stack(zs), *ys_list
             )
-        return (p_prev, p_curr, diag, aux), ys
-
-    import jax
+        return (p_prev, p_curr, level, diag, diag_level, aux), ys
 
     xs = (
         jnp.arange(lmax_pad + 1).reshape(n_outer, U),
@@ -206,7 +245,8 @@ def _legendre_scan(cos_theta, sin_theta, lmax: int, mmax: int, dtype, body,
         b_next.reshape((n_outer, U) + b_next.shape[1:]),
         dfac_next.reshape(n_outer, U),
     )
-    (_, _, _, aux), ys = lax.scan(step, (p_prev, p_curr, diag, aux0), xs)
+    carry = (p_prev, p_curr, level, diag, diag_level, aux0)
+    (*_, aux), ys = lax.scan(step, carry, xs)
     if ys is not None:
         # (n_outer, U, ...) -> (lmax_pad+1, ...)
         ys = jax.tree_util.tree_map(
@@ -345,10 +385,7 @@ def _make_legendre_primitive():
     pre-round-5 implementation needed (whose HLO grew linearly in lmax —
     untenable at lmax ≥ 1024) and bounds peak memory at O(n_rings·mmax)
     for any lmax."""
-    try:
-        from jax.extend.core import Primitive
-    except ImportError:  # pragma: no cover - older jax
-        from jax.core import Primitive
+    from jax.extend.core import Primitive
     import jax
     from jax.interpreters import ad, batching, mlir
 
@@ -465,8 +502,7 @@ def _legendre_contract(
 
 def _cap_synthesis(f_c, f_s, ring_idx, nphi, phi0, mmax, w_np, chunk=8):
     """Evaluate all polar-cap rings (ragged lengths 4k) in one scanned,
-    MXU-batched pass — the TPU replacement for per-ring-length fold
-    matrices + tiny FFTs (which cost one compiled program per distinct
+    batched pass — in place of per-ring-length fold matrices + tiny FFTs (which cost one compiled program per distinct
     ring length, untenable beyond nside ≈ 64).
 
     Ring values are a factored direct DFT:  with m = m1 + S·m2,
@@ -519,7 +555,7 @@ def _cap_synthesis(f_c, f_s, ring_idx, nphi, phi0, mmax, w_np, chunk=8):
     m2 = jnp.arange(M2, dtype=dtype)[None, :, None]
 
     # blocked python loop (NOT lax.scan: linear values in scan xs break
-    # jax.linear_transpose); per block two batched MXU contractions over
+    # jax.linear_transpose); per block two batched contractions over
     # m1 plus an elementwise combine over m2
     parts = []
     for r0 in range(0, R, chunk):
@@ -670,7 +706,7 @@ def gauss_legendre_grid(lmax: int, n_phi=None):
 def gauss_legendre_synthesis(alm, lmax: int, mmax=None, n_phi=None):
     """Real-alm synthesis onto the Gauss–Legendre grid: one Legendre
     contraction + one batched FFT (every ring has the same length —
-    the fully regular, MXU/FFT-friendly sphere)."""
+    the fully regular, matmul/FFT-friendly sphere)."""
     lmax = int(lmax)
     mmax = lmax if mmax is None else int(mmax)
     z, _, n_phi = gauss_legendre_grid(lmax, n_phi)

@@ -7,8 +7,7 @@ with a steepest-descent reset after 5 failed halvings.
 
 :func:`static_newton_cg` runs the whole minimization inside
 ``lax.while_loop`` so a complete VI step (sampling + KL minimization) can
-be one compiled XLA program — the TPU-native execution mode with zero
-host round-trips.  Independent implementation.
+be one compiled XLA program with zero host round-trips.  Independent implementation.
 """
 
 from __future__ import annotations

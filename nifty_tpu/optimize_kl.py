@@ -4,11 +4,11 @@ One VI iteration: (1) draw/refresh approximate posterior samples (CG
 inversion of the Hamiltonian metric, optionally nonlinearly curved), then
 (2) minimize the sample-averaged KL over the latent mean with Newton-CG.
 
-TPU-first defaults:
+Defaults:
 
 * the sample axis maps with ``vmap`` on one chip and shards over a 1-D
   device mesh when ``devices=`` is given — the KL mean-reduce then lowers
-  to a ``psum`` over ICI,
+  to a ``psum``,
 * sampling/minimization use the ``lax.while_loop`` CG/Newton-CG, so each
   phase is a single XLA program.
 
@@ -243,6 +243,20 @@ class OptimizeVI:
         self.residual_map = residual_map
         self.get_status_message = _get_status_message
         self._jit = jit
+        self._programs = {}
+
+    def _jit_once(self, name, kwargs, mapped):
+        """``jit(mapped)``, kept per ``(name, kwargs)`` so that later
+        iterations reuse the compiled program.  Unjitted, a mapped sampler
+        runs op by op and compiles every primitive on its own."""
+        if not self._jit:
+            return mapped
+        leaves, treedef = jax.tree_util.tree_flatten(kwargs)
+        key = (name, treedef, tuple((type(l), l) for l in leaves))
+        try:
+            return self._programs.setdefault(key, jax.jit(mapped))
+        except TypeError:  # an unhashable option: compile for this call only
+            return jax.jit(mapped)
 
     # --- sampling -----------------------------------------------------------
 
@@ -252,6 +266,7 @@ class OptimizeVI:
         sampler = self.residual_map(sampler, in_axes=(None, None, 0))
 
         if self.named_sharding is None:
+            sampler = self._jit_once("draw_linear", kwargs, sampler)
             if self.position_sharding is not None:
                 primals = jax.device_put(primals, self.position_sharding)
             if self.sample_axis_name is not None:
@@ -325,6 +340,8 @@ class OptimizeVI:
             )
             out_sh = (tree_map(lambda _: ns, samples.pos), ns)
             curver = jax.jit(curver, in_shardings=in_sh, out_shardings=out_sh)
+        else:
+            curver = self._jit_once("nonlinearly_update", kwargs, curver)
         smpls, states = curver(
             self.likelihood, samples.pos, samples._samples, metric_sample_key, sgn
         )

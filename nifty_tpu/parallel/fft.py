@@ -4,7 +4,7 @@ The reference never shards the field itself (samples are its only
 parallel axis; ``SURVEY.md §5``) — this module is the new ground needed
 for ≥10⁹-parameter fields: a **pencil-decomposed** N-D FFT over a named
 mesh axis, written with ``shard_map`` so the collectives are explicit
-``all_to_all`` transposes over ICI instead of XLA-inserted all-gathers:
+``all_to_all`` transposes instead of XLA-inserted all-gathers:
 
     axis-0-sharded → local FFT(axes 1..n−1) → all-to-all (transpose) →
     local FFT(axis 0) → all-to-all back.
@@ -17,16 +17,10 @@ from __future__ import annotations
 
 from functools import partial
 
-import jax
-import numpy as np
 from jax import lax
 from jax import numpy as jnp
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-
-try:  # jax>=0.4.35 exposes shard_map at the top level
-    from jax import shard_map  # type: ignore
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
+from jax.sharding import Mesh, PartitionSpec as P
 
 __all__ = [
     "sharded_fft2",
@@ -36,27 +30,17 @@ __all__ = [
 ]
 
 
-def _local_fft(y, axes, inverse):
-    """Local FFT along `axes`, routed through the MXU matmul FFT where the
-    size-based dispatch prefers it (see ``ops.fft``)."""
-    from ..ops.fft import _use_mxu, mxu_fftn
-
-    if _use_mxu(y.shape, axes):
-        return mxu_fftn(y, axes=axes, inverse=inverse)
-    fft = jnp.fft.ifftn if inverse else jnp.fft.fftn
-    return fft(y, axes=axes)
-
-
 def _fftn_local(x_block, axis_name: str, *, inverse: bool = False):
     """shard_map body: `x_block` is the local (n0/p, n1, …) pencil."""
+    fft = jnp.fft.ifftn if inverse else jnp.fft.fftn
     y = x_block
     if x_block.ndim > 1:
         # FFT along the locally-complete trailing axes
-        y = _local_fft(y, tuple(range(1, x_block.ndim)), inverse)
+        y = fft(y, axes=tuple(range(1, x_block.ndim)))
     # transpose pencils: (n0/p, n1, …) → (n0, n1/p, …)
     y = lax.all_to_all(y, axis_name, split_axis=1, concat_axis=0, tiled=True)
     # FFT along the now locally-complete leading axis
-    y = _local_fft(y, (0,), inverse)
+    y = fft(y, axes=(0,))
     # transpose back to leading-axis pencils
     return lax.all_to_all(y, axis_name, split_axis=0, concat_axis=1, tiled=True)
 
@@ -73,24 +57,16 @@ def sharded_fftn(x, mesh: Mesh, axis_name: str = "fx", *, inverse: bool = False)
     if x.ndim < 2:
         raise ValueError("sharded_fftn expects ndim >= 2 (pencil split)")
     spec = P(axis_name, *((None,) * (x.ndim - 1)))
-    try:
-        # map only the field axis manually; any other mesh axes (e.g. a
-        # sample axis of a 2-D mesh) stay automatic, so a vmapped sampler
-        # whose batch is sharded over them partitions around this kernel
-        fn = shard_map(
-            partial(_fftn_local, axis_name=axis_name, inverse=inverse),
-            mesh=mesh,
-            in_specs=(spec,),
-            out_specs=spec,
-            axis_names={axis_name},
-        )
-    except TypeError:  # older jax without partial-manual shard_map
-        fn = shard_map(
-            partial(_fftn_local, axis_name=axis_name, inverse=inverse),
-            mesh=mesh,
-            in_specs=(spec,),
-            out_specs=spec,
-        )
+    # map only the field axis manually; any other mesh axes (e.g. a sample
+    # axis of a 2-D mesh) stay automatic, so a vmapped sampler whose batch
+    # is sharded over them partitions around this kernel
+    fn = shard_map(
+        partial(_fftn_local, axis_name=axis_name, inverse=inverse),
+        mesh=mesh,
+        in_specs=(spec,),
+        out_specs=spec,
+        axis_names={axis_name},
+    )
     return fn(x.astype(jnp.complex64 if x.dtype == jnp.float32 else jnp.complex128))
 
 

@@ -2,7 +2,7 @@
 
 The framework's primary parallel axis is the VI *sample* axis (and the
 MCMC *chain* axis): posterior samples are independent apart from
-mean-reductions in the KL, so they shard perfectly over ICI with a single
+mean-reductions in the KL, so they shard perfectly over devices with a single
 ``psum`` per KL evaluation.  These helpers build the 1-D (or N-D, for
 future field-axis sharding) meshes and shardings used by
 ``optimize_kl``/HMC.

@@ -2,7 +2,7 @@
 
 Replaces the reference's MPI layer (`mpi4py`, ``nifty/cl/utilities.py``)
 for pod-scale runs: initialize `jax.distributed`, build global meshes
-whose sample axis spans hosts (samples ride DCN, field axes ride ICI),
+whose sample axis spans hosts (samples cross hosts, field axes stay within one),
 and provide the host-local slicing helpers that `shareRange` provided
 under MPI.  Reductions need no special determinism handling — mesh
 collectives have a fixed reduction tree, so results are bitwise
@@ -33,8 +33,7 @@ def initialize(
     process_id: Optional[int] = None,
 ):
     """Initialize multi-host jax (no-op on a single host).  With no
-    arguments, relies on the cluster environment (TPU pod runtime sets
-    everything automatically)."""
+    arguments, relies on the cluster environment to set everything."""
     if num_processes is not None and num_processes <= 1:
         return
     try:
@@ -65,8 +64,8 @@ def global_mesh(
 
     With one axis, all devices line up on it (samples over hosts).  With
     several, `axis_sizes` splits the device count; by default the first
-    axis gets `process_count()` (data/sample parallel over DCN) and the
-    remaining axes factor the local chip count (field axes over ICI).
+    axis gets `process_count()` (data/sample parallel across hosts) and
+    the remaining axes factor the local device count (field axes).
     """
     devices = np.asarray(jax.devices() if devices is None else devices)
     n = devices.size

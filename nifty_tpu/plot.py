@@ -4,7 +4,7 @@ A lightweight matplotlib layer in the spirit of the reference's
 ``nifty/cl/plot.py:532`` ``Plot`` class: queue heterogeneous panels
 (1-D lines, 2-D images, RING-ordered HEALPix maps in Mollweide
 projection, histograms, energy histories) and lay them out in one
-figure.  matplotlib is imported lazily so headless / TPU-pod runs
+figure.  matplotlib is imported lazily so headless runs
 without it never pay the import.
 """
 

@@ -1,15 +1,18 @@
 """Profiling sugar: timings, call counting, and XLA cost analysis.
 
-TPU-native counterpart of the reference's profiling helpers
+Counterpart of the reference's profiling helpers
 (``nifty/cl/sugar.py:606,699,823`` exec_time / operator-tree profiles and
 ``nifty/cl/operators/counting_operator.py``): instead of timing an eager
 operator tree node-by-node, measure the jitted forward/JVP/VJP programs
 and read XLA's own cost model (FLOPs, bytes accessed) from the compiled
-executable — the numbers that actually govern TPU wall-time.
+executable.
 """
 
 from __future__ import annotations
 
+import os
+import shutil
+import subprocess
 import time
 from typing import Any, Callable, Mapping, Optional
 
@@ -19,15 +22,71 @@ from jax import numpy as jnp
 
 from .logger import logger
 
-__all__ = ["CountingCall", "cost_analysis", "exec_time"]
+__all__ = [
+    "CountingCall",
+    "card_line",
+    "check_device",
+    "cost_analysis",
+    "enable_compile_cache",
+    "exec_time",
+    "median_seconds",
+]
 
 
-def _timeit(f, *args, n=3):
-    out = jax.block_until_ready(f(*args))
+def enable_compile_cache() -> str:
+    """Turn on JAX's persistent compilation cache and return its directory.
+
+    ``JAX_COMPILATION_CACHE_DIR``, when set, is honoured by JAX itself and
+    nothing else is configured.  Otherwise the cache lives at the fixed
+    path ``<repo>/.jax_cache``: the path is part of the cache key, so a
+    directory that moves between runs would never hit.
+    """
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = os.path.join(repo, ".jax_cache")
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path
+
+
+def check_device(devices, count=None):
+    """Refuse anything but GPUs (and, with ``count``, fewer of them);
+    return the first device."""
+    if len(devices) == 0:
+        raise RuntimeError("JAX found no device")
+    platforms = {d.platform for d in devices}
+    if platforms != {"gpu"}:
+        raise RuntimeError(f"no GPU: JAX's devices are on {sorted(platforms)}")
+    if count is not None and len(devices) < count:
+        raise RuntimeError(f"need {count} GPUs, JAX found {len(devices)}")
+    return devices[0]
+
+
+def card_line() -> str:
+    """``nvidia-smi``'s name and power limit of every card, ``|``-joined."""
+    smi = shutil.which("nvidia-smi")
+    if smi is None:
+        raise RuntimeError("nvidia-smi not found")
+    r = subprocess.run(
+        [smi, "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True,
+        text=True,
+        timeout=60,
+    )
+    if r.returncode != 0 or not r.stdout.strip():
+        raise RuntimeError(f"nvidia-smi failed: {r.stderr}")
+    return " | ".join(line.strip() for line in r.stdout.strip().splitlines())
+
+
+def median_seconds(f, *args, n: int = 10) -> float:
+    """Median wall time of single calls of ``f``, each ended by
+    ``block_until_ready``, after one warm-up call."""
+    jax.block_until_ready(f(*args))
     ts = []
     for _ in range(n):
         t0 = time.perf_counter()
-        out = jax.block_until_ready(f(*args))
+        jax.block_until_ready(f(*args))
         ts.append(time.perf_counter() - t0)
     return float(np.median(ts))
 
@@ -42,11 +101,11 @@ def exec_time(fn: Callable, primals, *, n: int = 3, verbose: bool = True):
     out = jax.block_until_ready(fwd(primals))
     compile_s = time.perf_counter() - t0
 
-    res = {"compile": compile_s, "forward": _timeit(fwd, primals, n=n)}
+    res = {"compile": compile_s, "forward": median_seconds(fwd, primals, n=n)}
 
     jvp = jax.jit(lambda p, t: jax.jvp(fn, (p,), (t,))[1])
     tangent = jax.tree_util.tree_map(jnp.ones_like, primals)
-    res["jvp"] = _timeit(jvp, primals, tangent, n=n)
+    res["jvp"] = median_seconds(jvp, primals, tangent, n=n)
 
     def _vjp(p, ct):
         _, pull = jax.vjp(fn, p)
@@ -54,7 +113,7 @@ def exec_time(fn: Callable, primals, *, n: int = 3, verbose: bool = True):
 
     ct = jax.tree_util.tree_map(jnp.ones_like, out)
     vjp = jax.jit(_vjp)
-    res["vjp"] = _timeit(vjp, primals, ct, n=n)
+    res["vjp"] = median_seconds(vjp, primals, ct, n=n)
     if verbose:
         logger.info(
             "exec_time: compile %.3fs | forward %.3es | jvp %.3es | vjp %.3es"

@@ -2,7 +2,7 @@
 
 GPs at arbitrary sampling points via interpolation from a regular grid
 of inducing points: ``C ≈ W K_grid Wᵀ`` with `W` a sparse multilinear
-interpolation matrix (BCOO — TPU-friendly gather/scatter) and the grid
+interpolation matrix (BCOO gather/scatter) and the grid
 covariance applied either spectrally (FFT-diagonal, :class:`HarmonicSKI`)
 or as a Toeplitz matmul via circulant embedding (:class:`ToeplitzSKI`).
 

@@ -1,10 +1,10 @@
 """Pytree-native vector algebra.
 
-TPU-first design note: every container in this framework is a plain JAX
+Design note: every container in this framework is a plain JAX
 pytree (dicts / :class:`Vector`).  All reductions (``vdot``, ``norm``...)
 are expressed as pure ``jnp`` ops so that, when leaves are sharded over a
 ``jax.sharding.Mesh``, XLA lowers them to on-device partial reductions plus
-ICI collectives automatically — no bespoke communication code is needed.
+collectives automatically — no bespoke communication code is needed.
 
 Functional parity with the reference library's tree-math layer
 (``nifty/re/tree_math/{vector,vector_math,forest_math}.py``), re-designed
@@ -79,7 +79,6 @@ class ShapeWithDtype:
         shape = tuple(int(s) for s in shape)
         self._shape = shape
         # Default to JAX's default float: f64 under `jax_enable_x64`, else f32
-        # (the TPU-native choice).
         self._dtype = jnp.result_type(float) if dtype is None else dtype
 
     @classmethod
@@ -323,7 +322,7 @@ def vdot(a, b):
     """Tree-wide inner product ⟨a, b⟩ = Σ_leaves vdot(a_i, b_i).
 
     Uses highest-precision dot products so CG recurrences remain accurate in
-    float32 on TPU.
+    float32 (no TF32 or bf16 passes).
     """
     return tree_reduce(operator.add, tree_map(_leaf_vdot, a, b), 0.0)
 
@@ -469,7 +468,7 @@ def smap(fun, in_axes=0, out_axes=0):
     """Sequential map with vmap semantics, implemented via `lax.scan`.
 
     Processes the mapped axis one slice at a time — O(1) extra memory
-    compared to `vmap`'s O(n).  The TPU analogue of the reference's `smap`
+    compared to `vmap`'s O(n).  The analogue of the reference's `smap`
     (``nifty/re/custom_map.py:106``).
     """
     if out_axes != 0:

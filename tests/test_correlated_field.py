@@ -341,6 +341,38 @@ def test_pwl_features_primitive_transforms():
     np.testing.assert_allclose(np.asarray(jx1), np.asarray(jx2), atol=1e-12)
 
 
+@pytest.mark.parametrize("op", ["apply", "pullback", "jvp_x"])
+@pytest.mark.parametrize("chunk", [3, 8, None])
+def test_pwl_features_chunked_match_numpy(monkeypatch, op, chunk):
+    """Knot-chunked and unchunked relu features agree with float64 numpy
+    (K=20 knots: chunk 3 leaves a ragged last chunk, None is unchunked)."""
+    import nifty_tpu.models.correlated_field as cfmod
+
+    monkeypatch.setattr(
+        cfmod, "_pwl_knot_chunk", lambda k: k if chunk is None else min(k, chunk)
+    )
+    rng = np.random.default_rng(11)
+    x = rng.uniform(0.0, 6.0, size=(13, 17))
+    knots = np.linspace(0.0, 6.0, 20)
+    coef = rng.normal(size=19)
+    feats = np.maximum(x[..., None] - knots[:-1], 0.0)
+    xj, kj, cj = map(jnp.asarray, (x, knots, coef))
+    f = lambda c: cfmod._pwl_relu_features(xj, kj, c)  # noqa: E731
+    if op == "apply":
+        got, want = f(cj), feats @ coef
+    elif op == "pullback":
+        ct = rng.normal(size=x.shape)
+        (got,) = jax.linear_transpose(f, cj)(jnp.asarray(ct))
+        want = np.einsum("ijk,ij->k", feats, ct)
+    else:
+        tx = rng.normal(size=x.shape)
+        got = jax.jvp(
+            lambda xx: cfmod._pwl_relu_features(xx, kj, cj), (xj,), (jnp.asarray(tx),)
+        )[1]
+        want = tx * ((x[..., None] > knots[:-1]) @ coef)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=1e-12, atol=1e-12)
+
+
 def test_vmodel_multifrequency_shared_spectrum():
     """dofdex-style multifrequency batching (reference
     ``nifty/cl/library/correlated_fields.py:659``): VModel over the

@@ -116,7 +116,7 @@ def test_knot_prior_field_variance_matches_exact():
 def test_knot_posterior_moments_match_exact():
     """Full MGVI runs with the exact and the K=64 knot prior on the same
     data produce matching posterior means/uncertainties (the justification
-    for benchmarking the knot variant; VERDICT r1 item 4)."""
+    for benchmarking the knot variant)."""
     shape = (64, 64)
 
     def build(K):

@@ -1,9 +1,9 @@
 """≥10⁸-dof domain-decomposed inference step on the virtual 8-device mesh.
 
-The VERDICT r1 'done' criterion for integrated field sharding: a 10240²
+The criterion for integrated field sharding: a 10240²
 (1.05·10⁸ parameter) correlated field runs forward, metric, CG sampling,
 and a Newton-CG KL step domain-decomposed over the mesh with per-device
-arrays of O(N/p).  f32 throughout (the TPU precision).  Gated behind
+arrays of O(N/p).  float32 throughout.  Gated behind
 ``NIFTY_TPU_LARGE=1`` — it needs ~20 GB RAM and minutes of (virtual-CPU)
 wall time; run manually or in a nightly lane.  A 1024² ungated smoke
 variant covers the same code path in CI.
@@ -165,6 +165,6 @@ def test_field_sharded_vi_step_1e9_dof():
     step). 8192·8192·16 = 1.074e9 parameters; predicted ≈124 GiB host
     RSS per the measured model in docs/design.md — only fits hosts with
     ≳128 GB (virtual-device CPU execution materializes every device's
-    shard in one address space; a real TPU slice needs only the
-    per-chip share, see docs/design.md)."""
+    shard in one address space; real devices need only the
+    per-device share, see docs/design.md)."""
     _run_step((8192, 8192, 16), knots=64, map="smap")

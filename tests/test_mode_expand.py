@@ -113,3 +113,32 @@ def test_expand_under_jit():
     tab = jnp.asarray(np.random.default_rng(4).standard_normal(U))
     out = jax.jit(lambda t: mode_expand(t, packed, layout))(tab)
     np.testing.assert_array_equal(np.asarray(out), np.asarray(tab)[core])
+
+
+_LAYOUTS = [
+    ((32, 32), 1.0 / 32, "rfp2"),
+    ((48, 48), 1.0 / 48, "rfp2"),  # H=25
+    ((30, 30), 1.0 / 30, "flat"),
+    ((32, 16), (1.0 / 32, 1.0 / 16), "flat"),
+    ((64,), 1.0 / 64, "flat"),
+]
+
+
+@pytest.mark.parametrize("batch", [None, 3])
+@pytest.mark.parametrize("shape,distances,kind", _LAYOUTS)
+def test_expand_and_transpose_match_numpy(shape, distances, kind, batch):
+    """Forward equals ``np.take`` on the core table; the transpose equals
+    ``np.add.at`` (unbatched, and with the batch as trailing columns)."""
+    core, U, packed, layout = _core_and_layout(shape, distances)
+    assert layout.kind == kind
+    rng = np.random.default_rng(len(shape) + (batch or 0))
+    tshape = (U,) if batch is None else (U, batch)
+    tab = rng.standard_normal(tshape)
+    f = lambda t: mode_expand(t, packed, layout)  # noqa: E731
+    out = np.asarray(f(jnp.asarray(tab)))
+    np.testing.assert_array_equal(out, np.take(tab, core, axis=0))
+    cot = rng.standard_normal(out.shape)
+    (got,) = jax.linear_transpose(f, jnp.asarray(tab))(jnp.asarray(cot))
+    want = np.zeros(tshape)
+    np.add.at(want, core, cot)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=1e-12, atol=1e-12)

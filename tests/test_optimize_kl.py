@@ -98,3 +98,48 @@ def test_optimize_kl_sharded_nonlinear():
     assert len(samples) == 4
     leaf = jax.tree_util.tree_leaves(samples._samples)[0]
     assert np.all(np.isfinite(np.asarray(leaf)))
+
+
+def _vi_run(jit, cg_kwargs):
+    """Two geoVI iterations with fixed short solver budgets: no stopping
+    rule, and too few CG steps to reach the rounding floor, whose noise CG
+    would amplify, so the jitted and the op-by-op run agree to rounding."""
+    lh, cf, truth = _cf_problem(shape=(16,))
+    opt = nt.OptimizeVI(lh, n_total_iterations=2, jit=jit)
+    fixed_cg = dict(resnorm=-1.0, miniter=3, maxiter=3)
+    newton = dict(xtol=-1.0, maxiter=2, energy_reduction_factor=0.0, cg_kwargs=fixed_cg)
+    samples, _ = nt.optimize_kl(
+        lh,
+        nt.Vector(lh.init(random.PRNGKey(8))),
+        key=random.PRNGKey(9),
+        n_total_iterations=2,
+        n_samples=2,
+        draw_linear_kwargs=dict(cg_kwargs=cg_kwargs | dict(resnorm=-1.0)),
+        nonlinearly_update_kwargs=dict(minimize_kwargs=newton),
+        kl_kwargs=dict(minimize_kwargs=newton),
+        sample_mode="nonlinear_resample",
+        _optimize_vi=opt,
+    )
+    return samples, opt
+
+
+@pytest.mark.parametrize(
+    "cg_kwargs, n_programs",
+    [
+        (dict(miniter=3, maxiter=3), 2),
+        (dict(miniter=3, maxiter=3, absdelta=jnp.asarray(0.0)), 1),
+    ],
+)
+def test_optimize_vi_compiles_each_sampling_phase_once(cg_kwargs, n_programs):
+    """Jitted, both sampling phases are one program each, reused by every
+    iteration (an unhashable option compiles per call instead), and they
+    agree with the op-by-op run."""
+    s_jit, opt = _vi_run(True, cg_kwargs)
+    assert len(opt._programs) == n_programs
+    s_eager, opt_eager = _vi_run(False, cg_kwargs)
+    assert opt_eager._programs == {}
+    for a, b in zip(
+        jax.tree_util.tree_leaves(s_jit._samples),
+        jax.tree_util.tree_leaves(s_eager._samples),
+    ):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-12, atol=1e-12)

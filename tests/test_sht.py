@@ -1,4 +1,4 @@
-"""TPU-native HEALPix SHT tests vs brute-force spherical harmonics."""
+"""HEALPix SHT tests vs brute-force spherical harmonics."""
 
 import jax
 import numpy as np
@@ -378,6 +378,17 @@ def _sampled_mode_check(nside, lmax, modes, atol):
 def test_synthesis_sampled_modes_nside64():
     modes = [(0, 0, 0), (127, 0, 0), (128, 128, 0), (100, 37, 1), (128, 1, 0), (77, 76, 1)]
     _sampled_mode_check(64, 128, modes, atol=1e-8)
+
+
+@pytest.mark.parametrize(
+    "modes",
+    [[(128, 128, 0), (128, 127, 1)], [(128, 100, 0), (120, 90, 1)], [(100, 64, 0), (77, 76, 1)]],
+)
+def test_synthesis_sampled_modes_nside64_f64_tight(modes):
+    """High-m modes, whose seeds sin^m θ leave even the float64 range near
+    the poles, so the scaled recurrence carries them: float64 stays exact
+    to rounding there (a cut-off at 2^-32 would be off by ~1e-9)."""
+    _sampled_mode_check(64, 128, modes, atol=1e-12)
 
 
 @pytest.mark.skipif(not LARGE, reason="set NIFTY_TPU_LARGE=1 (minutes)")
